@@ -11,6 +11,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.retrieval.chunking import Passage
 from repro_torch.retrieval.index import DenseIndex
 
@@ -29,8 +30,9 @@ def index_from_numpy(
 
 
 def catalog_from_jax_arrays(
-    arrays: Mapping[str, np.ndarray], *, device: str | torch.device = "cpu"
+    arrays: Mapping[str, np.ndarray], *, device: str | torch.device
 ) -> dict[str, torch.Tensor]:
     """Tensors of a JAX ``BundleCatalog.as_arrays()`` dict (via ``np.asarray``),
     with their dtypes kept."""
+    device = resolve_device(device)
     return {k: torch.from_numpy(np.array(v)).to(device) for k, v in arrays.items()}

@@ -86,18 +86,15 @@ class RetrievalBackend(Protocol):
 
 
 class DenseBackend:
-    """Exact MIPS through :class:`DenseIndex` (pure delegation).
-
-    ``scorer=None`` lets the index pick by its device: the CUDA kernel for a
-    CUDA index, the plain blocked scorer for a CPU index.
-    """
+    """Exact MIPS through :class:`DenseIndex` (pure delegation). The index
+    picks its scorer by its device: the CUDA kernel for a CUDA index, the
+    plain blocked scorer for a CPU index."""
 
     name = "dense"
     requires_query_vecs = True
 
-    def __init__(self, index: DenseIndex, *, scorer: str | None = None):
+    def __init__(self, index: DenseIndex):
         self.index = index
-        self.scorer = scorer
         self.cost = BackendCost(
             latency_scale=1.0, recall_prior=1.0, flops_per_item=2.0 * index.dim
         )
@@ -109,7 +106,7 @@ class DenseBackend:
 
     def search_batch(self, queries, query_vecs, k):
         """Exact MIPS over the full corpus (pure index delegation)."""
-        return self.index.search_batch(query_vecs, k, scorer=self.scorer)
+        return self.index.search_batch(query_vecs, k)
 
     def get_passages(self, ids) -> list[Passage]:
         """Resolve passage ids through the wrapped index."""

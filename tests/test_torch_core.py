@@ -110,7 +110,7 @@ def test_catalog_arrays_match():
     ours = DEFAULT_CATALOG.as_arrays()
     theirs = {k: np.asarray(v) for k, v in JAX_CATALOG.as_arrays().items()}
     assert set(ours) == set(theirs)
-    for k, v in catalog_from_jax_arrays(theirs).items():
+    for k, v in catalog_from_jax_arrays(theirs, device="cpu").items():
         assert v.dtype == ours[k].dtype, k
         np.testing.assert_array_equal(ours[k].numpy(), v.numpy())
 

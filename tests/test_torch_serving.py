@@ -82,6 +82,33 @@ def test_serve_synthetic_matches_jax_serve(tmp_path, monkeypatch, capsys):
     assert_csv_agrees(_read(tmp_path / "torch.csv"), _read(tmp_path / "jax.csv"))
 
 
+def _record_searches(monkeypatch, backend_cls, calls):
+    """Wrap ``backend_cls.search_batch`` to log each call's (rows, k)."""
+    inner = backend_cls.search_batch
+
+    def search_batch(self, queries, query_vecs, k):
+        calls.append((len(queries), k))
+        return inner(self, queries, query_vecs, k)
+
+    monkeypatch.setattr(backend_cls, "search_batch", search_batch)
+
+
+def test_search_calls_match_jax_serve(tmp_path, monkeypatch):
+    """The same searches, finalize's single-query replays included, in the
+    same order: the port issues as many corpus passes as the reference."""
+    from repro.retrieval.backend import DenseBackend as JaxDenseBackend
+    from repro_torch.retrieval.backend import DenseBackend
+
+    flags = ["--synthetic-docs", "2000", "--synthetic-dim", "256", "--synthetic-seed", "0"]
+    ours, theirs = [], []
+    _record_searches(monkeypatch, DenseBackend, ours)
+    _record_searches(monkeypatch, JaxDenseBackend, theirs)
+    serve.main([*flags, "--device", "cpu", "--out", str(tmp_path / "torch.csv")])
+    monkeypatch.setattr(sys, "argv", ["serve", *flags, "--out", str(tmp_path / "jax.csv")])
+    jax_serve.main()
+    assert ours == theirs and len(ours) > 0
+
+
 def test_serve_paper_corpus_matches_jax_serve(tmp_path, monkeypatch):
     serve.main(["--device", "cpu", "--policy", "fixed_medium", "--out", str(tmp_path / "t.csv")])
     monkeypatch.setattr(sys, "argv", ["serve", "--policy", "fixed_medium",
